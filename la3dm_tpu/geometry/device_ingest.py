@@ -1,12 +1,12 @@
-"""Device-side scan ingestion: raw point clouds → engine tables, on TPU.
+"""Device-side scan ingestion: raw point clouds → engine tables, on device.
 
 The reference's ``get_training_data`` + R-tree indexing pipeline
 (``src/bgkoctomap/bgkoctomap.cpp:383-458``, ``:240-243``) is host work: voxel
 downsample, per-beam free-space sampling, a second downsample, then spatial
-bucketing.  Rounds 1–3 ran it as vectorized numpy / native C++ on the host,
-which BENCH_r03 proved to be the throughput ceiling for the cheap methods
-(host_frac 0.65–0.82 on a 2-core box).  This module moves the whole pipeline
-onto the device as ONE jitted, fixed-shape program per scan batch:
+bucketing.  Run as vectorized numpy / native C++ on the host, it was the
+throughput ceiling for the cheap methods on a 2-core host.  This module
+moves the whole pipeline onto the device as ONE jitted, fixed-shape program
+per scan batch:
 
   [K, P, 3] raw clouds ──► downsample (sort + segmented scan)
                         ──► max-range filter + beam free sampling ([P, Kf] grid)
@@ -16,17 +16,17 @@ onto the device as ONE jitted, fixed-shape program per scan batch:
                         ──► (BGK/BGKL) fixed-width row tables  → models/bgk.py
                         ──► (GP) per-model segments + slot map  → models/gp.py
 
-TPU-shaped primitives (profiled on a v5e: large gathers/scatters run at
-~100 M elem/s while ``lax.sort`` moves >500 M rows/s and cumsum/elementwise
-are HBM-bound):
+Primitives chosen for an accelerator on which random-access gathers and
+scatters were much slower than sorts and streaming elementwise passes
+(whether that holds on the current GPU is an open measurement):
 * every reorder is a **payload-carrying sort** — ``lax.sort`` moves the
   entry coordinates and labels along with the keys, so the classic
-  argsort→gather pattern (a ~10 ms gather per million rows) never appears;
+  argsort→gather pattern never appears;
 * segment reductions use a **log-shift segmented scan** (Hillis–Steele with
   a same-key guard) plus ONE extra int32 sort that compacts the run-end
   positions into rank space — no ``segment_sum`` scatters;
-* key lookups use **equality one-hot matmuls** on the MXU instead of
-  ``searchsorted`` (a 17-iteration while-loop of serialized gathers);
+* key lookups use **equality one-hot matmuls** instead of ``searchsorted``
+  (a 17-iteration while-loop of serialized gathers);
 * the ragged row expansion scatters a few thousand segment *deltas* and
   integrates with ``cumsum``/``cummax`` — monotone ids propagate by running
   max, non-monotone values by scattered first-differences.
@@ -149,7 +149,7 @@ def spec_for(cfg, ds_resolution: float, free_resolution: float,
 
 
 # --------------------------------------------------------------------------
-# TPU-shaped building blocks (single scan; vmapped over the batch)
+# Building blocks (single scan; vmapped over the batch)
 # --------------------------------------------------------------------------
 
 
@@ -221,10 +221,9 @@ def _downsample(points: jax.Array, valid: jax.Array, leaf: float,
     d_s = jnp.stack([xs, ys, zs], axis=1)
     sums = _seg_scan_sum(key_s, jnp.where((key_s != _SENT)[:, None], d_s, 0.0))
     # compact the run-end rows to a prefix with a SECOND payload sort (keyed
-    # by run-end-else-sentinel) instead of position gathers — random-access
-    # gathers run at ~0.6 GiB/s on this part while payload sorts stream at
-    # ~10 GiB/s (hlo_stats profile, r5); run lengths come from the carried
-    # positions by first difference
+    # by run-end-else-sentinel) instead of position gathers (see the module
+    # docstring); run lengths come from the carried positions by first
+    # difference
     S = key_s.shape[0]
     i = jnp.arange(S, dtype=jnp.int32)
     is_last = (key_s != _SENT) & ((i == S - 1) | (key_s != jnp.roll(key_s, -1)))
@@ -305,8 +304,12 @@ def _bucket_align(mkey: jax.Array, payloads: tuple, spec: IngestSpec,
     run becomes a multiple of ``spec.Wa``; the second (stable, payload-
     carrying) sort splices the pads after each block's real entries — the
     engine then consumes entries by pure reshape, no gathers.  All key
-    lookups are equality one-hot matmuls (exact in f32: every operand is a
-    position/count < 2^21 ≪ 2^24).
+    lookups are equality one-hot matmuls: each output row sums one 1.0 × a
+    position < max(T, Bu), exact in f32 (< 2^24) — but only at
+    ``Precision.HIGHEST``.  At default precision a GPU may round the
+    operands to TF32 (11 significant bits), which is exact only for
+    positions ≤ 2048 — exactly the ladder caps on T and Bu
+    (models/ingest.py), with no margin — so the precision is pinned.
     """
     Mraw = mkey.shape[0]
     Bu, T, G, Wa = spec.Bu, spec.T, off_keys.shape[0], spec.Wa
@@ -364,7 +367,8 @@ def _bucket_align(mkey: jax.Array, payloads: tuple, spec: IngestSpec,
                    jnp.int32(-2))                             # [Bu,G]
     eq2 = (ub.reshape(-1)[:, None] == tkey[None, :]) & tvalid[None, :]
     eq2f = eq2.astype(jnp.float32)                            # [Bu·G, T]
-    pos = (eq2f @ jnp.arange(T, dtype=jnp.float32)).astype(jnp.int32)
+    pos = jnp.dot(eq2f, jnp.arange(T, dtype=jnp.float32),
+                  precision=lax.Precision.HIGHEST).astype(jnp.int32)
     hit2 = jnp.any(eq2, axis=1)
     nb_row = jnp.where(hit2, pos, T).reshape(Bu, G)
 
@@ -376,7 +380,8 @@ def _bucket_align(mkey: jax.Array, payloads: tuple, spec: IngestSpec,
                    jnp.int32(-2))                             # [T,G]
     eq3 = (tb.reshape(-1)[:, None] == ukey[None, :]) & uvalid[None, :]
     eq3f = eq3.astype(jnp.float32)                            # [T·G, Bu]
-    upos = (eq3f @ jnp.arange(Bu, dtype=jnp.float32)).astype(jnp.int32)
+    upos = jnp.dot(eq3f, jnp.arange(Bu, dtype=jnp.float32),
+                   precision=lax.Precision.HIGHEST).astype(jnp.int32)
     tb_u = jnp.where(jnp.any(eq3, axis=1), upos, Bu).reshape(T, G)
 
     return {"mkey_a": mkey_a, "cols_a": cols_a, "vmask": vmask,
@@ -595,11 +600,10 @@ def u_targets(urank_rows: jax.Array, tb_u: jax.Array,
     """Targets for the entry-block-indexed accumulator.
 
     The heavy pass accumulates each Wa-row's full [G, Vall, 2] output at ONE
-    accumulator row — its entry block — so every scatter update is a
-    contiguous, (8,128)-tile-aligned [G·Vall·2] vector (the per-(row, slot)
-    scatter it replaces moved 584-byte fragments at 25 GB/s and was 35% of
-    device time).  The light pass then gathers per (test row, slot) through
-    ``tb_u`` (row gathers run near HBM speed).
+    accumulator row — its entry block — so every scatter update is one
+    contiguous [G·Vall·2] vector instead of per-(row, slot) fragments.  The
+    light pass then gathers whole rows per (test row, slot) through
+    ``tb_u``.
 
     urank_rows [K, R2p] — block rank of each Wa-row within its scan (rows
     past the live region carry the last rank: harmless, their entries are

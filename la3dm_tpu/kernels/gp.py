@@ -3,7 +3,7 @@
 The reference runs one exact GP per block: Matérn-3/2 Gram matrix + LLT
 Cholesky at train time (``gpregressor.h:42-51``), triangular solve + variance
 at predict time (``gpregressor.h:80-92``).  Here blocks are padded to a
-common point count and solved as one batched Cholesky on the MXU
+common point count and solved as one batched Cholesky
 (``jax.lax.linalg``), with padding points placed at a far-away coordinate so
 their kernel rows vanish and the padded system block-diagonalises.
 """
@@ -72,7 +72,8 @@ def gp_predict_core(L: jax.Array, alpha: jax.Array, points: jax.Array, valid: ja
 
     def per_block(Lb, ab, x, q):
         Ks = km.cov_matern32(x, q, sf2, ell)              # [S,M]
-        mean = jnp.dot(Ks.T, ab[:, None], preferred_element_type=jnp.float32)[:, 0]
+        mean = jnp.dot(Ks.T, ab[:, None], precision=jax.lax.Precision.HIGHEST,
+                       preferred_element_type=jnp.float32)[:, 0]
         v = jax.lax.linalg.triangular_solve(Lb, Ks, left_side=True, lower=True)
         var = jnp.float32(sf2) - jnp.sum(v * v, axis=0)
         return mean, var

@@ -1,9 +1,10 @@
 """Covariance kernels and distances — the math of §2.3 of the reference.
 
-All functions are pure, float32, and shaped for the MXU: pairwise distances
-are computed via the Gram expansion ``|a|² + |b|² − 2a·bᵀ`` (one matmul)
+All functions are pure and float32, and evaluate whole [M,N] blocks at once
 rather than the reference's row-at-a-time Eigen loops
-(``bgkinference.h:88-93``).
+(``bgkinference.h:88-93``).  Pairwise distances use direct per-axis
+subtraction, not the Gram expansion ``|a|² + |b|² − 2a·bᵀ``
+(see :func:`pairwise_dist`).
 
 Reference formulas (float32 constants preserved exactly):
 * sparse (Melkumyan-Ramos) kernel: ``sf2·[(2+cos 2πr)(1−r)/3 + sin(2πr)/2π]``
@@ -35,7 +36,7 @@ def pairwise_dist(a: jax.Array, b: jax.Array) -> jax.Array:
 
     Direct per-axis subtraction, matching the reference's Eigen rowwise norm
     (``bgkinference.h:88-93``) to float32 roundoff.  (The Gram expansion
-    |a|²+|b|²−2a·bᵀ is one MXU matmul but loses ~3 digits near the kernel
+    |a|²+|b|²−2a·bᵀ is one matmul but loses ~3 digits near the kernel
     support boundary, which flips clamp decisions vs the reference — measured
     5.8e-3 worst-case kernel deviation on block-local data.)
     """

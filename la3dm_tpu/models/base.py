@@ -115,6 +115,12 @@ class BlockPool:
     def __len__(self) -> int:
         return self.n_blocks
 
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the pool state: every field, touched, eff_level."""
+        return (sum(a.nbytes for a in self.fields.values())
+                + self.touched.nbytes + self.eff_level.nbytes)
+
     def _grow(self, min_capacity: int) -> None:
         new_cap = self.capacity
         while new_cap < min_capacity:
@@ -193,9 +199,11 @@ class OccupancyMapBase:
         #: evaluated; host_s = wall time in host preprocessing/table building,
         #: i.e. everything before each device dispatch; query_fetch_bytes =
         #: device→host bytes materialized by search()/leaves() — the query
-        #: paths gather on device and fetch O(result), never O(map))
+        #: paths gather on device and fetch O(result), never O(map);
+        #: host_fallback_chunks = scan chunks that device ingestion handed to
+        #: the host path, models/ingest.py)
         self.stats = {"kernel_evals": 0, "scans": 0, "host_s": 0.0,
-                      "query_fetch_bytes": 0}
+                      "host_fallback_chunks": 0, "query_fetch_bytes": 0}
 
     def _fetch(self, arr) -> np.ndarray:
         """Materialize a device array on host, accounting the bytes."""

@@ -1,6 +1,6 @@
 """BGKOctoMap — Bayesian generalized kernel inference with Beta posteriors.
 
-TPU-native re-design of the reference BGK family pipeline
+Accelerator re-design of the reference BGK family pipeline
 (``src/bgkoctomap/bgkoctomap.cpp:214-366``), built as a **two-pass row
 engine** so whole scan *sequences* integrate in one device dispatch:
 
@@ -124,7 +124,8 @@ def _bgk_seq_step(A, Bv, touched, eff, all_nodes, node_idx_tab,
                 Km = km.cov_sparse(v, e, sf2, ell)
             Km = jnp.where(m[None, :], Km, 0.0)                 # [Vall,W]
             rhs = kp._slot_rhs(l, g, m, G)                      # [W,2G]
-            return jnp.dot(Km, rhs, preferred_element_type=jnp.float32)
+            return jnp.dot(Km, rhs, precision=jax.lax.Precision.HIGHEST,
+                           preferred_element_type=jnp.float32)
 
         out = jax.vmap(one)(vox, ent, lab, gs, val)             # [c,Vall,2G]
         return acc.at[blk_c].add(out, mode="drop"), None
@@ -185,8 +186,7 @@ def _select_eff(vals: jax.Array, eff_b: jax.Array, n: int, block_depth: int):
     x-fastest raster, then level 1's (n/2)³ nodes, ...).  Each level's slab
     upsamples to base resolution by pure broadcast/reshape (ancestor ids are
     per-axis shifts in raster order), then ``eff_b`` [Bt, V] picks levels
-    elementwise.  Replaces a per-element take_along_axis gather that
-    profiled at ~10 ms per chunk on a v5e.
+    elementwise, in place of a per-element take_along_axis gather.
     """
     Bt = vals.shape[0]
     off = 0
@@ -208,13 +208,16 @@ def _aligned_heavy(acc, ext_nodes, ent_rel, labels, vmask, u_tgt,
     per-ENTRY-BLOCK accumulation into ``acc`` [Up+1, G·Vall·2].
 
     Each Wa-row's full [G, Vall, 2] output lands at ONE accumulator row
-    (its entry block, ``u_tgt``) as a contiguous (8,128)-tile-aligned
-    vector; rows of the same block are adjacent (the ingest sort), so the
-    scatter-add degenerates to mostly-sequential whole-tile read-modify-
-    writes.  The earlier per-(row, slot) layout moved 584-byte fragments at
-    25 GB/s and was 35% of device time on the long-horizon profile.  Shared
-    by the sequence engine and the bench roofline microbench (bench.py) so
-    the saturation numbers measure exactly the production computation."""
+    (its entry block, ``u_tgt``) as one contiguous vector; rows of the same
+    block are adjacent (the ingest sort), so the scatter-add degenerates to
+    mostly-sequential whole-row read-modify-writes instead of per-(row,
+    slot) fragments.  Shared by the sequence engine and the bench roofline
+    microbench (bench.py) so the saturation numbers measure exactly the
+    production computation.
+
+    The dots run at ``Precision.HIGHEST``: the k̄ > gate test sits on the
+    sparse kernel's clamp boundary, so reduced-precision (TF32) products
+    would flip update gates, not just last bits."""
     GV, D = ext_nodes.shape[0], ent_rel.shape[-1]
     R2K = u_tgt.shape[0]
     nch = R2K // chunk
@@ -231,13 +234,14 @@ def _aligned_heavy(acc, ext_nodes, ent_rel, labels, vmask, u_tgt,
             else:
                 Km = km.cov_sparse(ext_nodes, e_r, sf2, ell)
             Km = jnp.where(m_r[None, :], Km, 0.0)            # [GV, Wa]
-            # two [GV] matvecs, not one [GV,2] matmul: a minor dim of 2
-            # forces a (2,128)-tiled output (the dot fusion was VMEM-write
-            # bound at 27 GiB/s, top op of the r5 profile); batched [c,GV]
-            # outputs tile (8,128) cleanly.  Same per-element f32 sums.
+            # two [GV] matvecs, not one [GV,2] matmul: the batched [c,GV]
+            # outputs keep the voxel axis minor (a minor dim of 2 would
+            # not).  Same per-element f32 sums.
             yb = jnp.dot(Km, jnp.where(m_r, l_r, 0.0),
+                         precision=jax.lax.Precision.HIGHEST,
                          preferred_element_type=jnp.float32)
             kb = jnp.dot(Km, m_r.astype(jnp.float32),
+                         precision=jax.lax.Precision.HIGHEST,
                          preferred_element_type=jnp.float32)
             return yb, kb
 
@@ -352,7 +356,7 @@ class BGKOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
     # ------------------------------------------------ device-side ingestion
 
     def _ingest_enabled(self) -> bool:
-        # BGK and BGKL ingest on TPU through this class; GP gates itself via
+        # BGK and BGKL ingest on device through this class; GP gates itself via
         # the mixin default (GPOctoMap does not inherit from BGKOctoMap), and
         # the LV family runs its own ray-shortening ingest (models/bgklv.py)
         return self.cfg.method in ("bgk", "bgkl") and super()._ingest_enabled()
@@ -466,7 +470,7 @@ class BGKOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
         scan's gate/update/prune in order; successive dispatches resume from
         the previous chunk's pool state exactly like successive scans do.
 
-        On TPU the whole preprocessing pipeline runs on-device
+        On an accelerator the whole preprocessing pipeline runs on-device
         (geometry/device_ingest.py) — the host only pads raw clouds and
         allocates pool slots.  On the host path, chunks are STREAMED: scan
         preprocessing runs in a thread pool while earlier chunks' (async)
@@ -721,10 +725,6 @@ class BGKOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
             gate=self.GATE, n=self.n, max_level=cfg.block_depth - 1,
             segments=self.SEGMENTS, state_fn=self._state_fn,
             do_prune=cfg.block_depth > 1, scan_bt=Btp)
-        if getattr(self, "_capture_step_args", False):
-            # driver contract (__graft_entry__.entry): host copies, because
-            # the pool arrays in ``args`` are donated by the call below
-            self._last_step_call = (tuple(np.asarray(a) for a in args), statics)
         (self.pool.fields["A"], self.pool.fields["B"], self.pool.touched,
          self.pool.eff_level) = _bgk_seq_step(*args, **statics)
 

@@ -52,6 +52,9 @@ def segment_block_entries(td: preprocess.SegmentTrainingData,
 class BGKLOctoMap(BGKOctoMap):
     SEGMENTS = True
     GATE = 0.001  # bgkloctomap.cpp:231
+    # on an H100 the batched device ingestion ran about 30 % below the host
+    # path end to end, and tied it scan by scan (PERF.md, Findings)
+    AUTO_DEVICE_INGEST = False
 
     def _scan_tables(self, cloud, origin, ds_resolution, free_resolution,
                      max_range):

@@ -8,7 +8,7 @@ rays, :176-207), and runs a single-test-point BGKLV predict with gate
 k̄ > 0.001 (:236-238).  Leaves above base resolution are skipped (:157-160);
 pruning only runs with original_size (:271-272).
 
-TPU design — the **row engine**: the reference's O(voxels) tiny GEMVs
+Device design — the **row engine**: the reference's O(voxels) tiny GEMVs
 become dense masked products over 8³-voxel tiles.  Each active (scan, tile)
 pair owns the ids of the rays/hits whose R-tree proxy samples fall in the
 tile's ℓ-halo; hits are *degenerate segments* (start == end), exactly as the
@@ -42,11 +42,11 @@ from la3dm_tpu.kernels import math as km
 from la3dm_tpu.models import base, posterior
 from la3dm_tpu.utils.config import MapConfig
 
-#: fixed entry-row width (lane-aligned); rows beyond a tile's entry count are
-#: masked, tiles with more entries get multiple rows accumulated on device.
-#: 64 beat 128/32 in the r5 same-process sweep on the depth-6 workload
-#: (1.97 vs 2.19/2.02 s per 60 scans): the per-tile pad-to-W waste feeds
-#: straight into the now Compute-bound kernel contraction
+#: fixed entry-row width; rows beyond a tile's entry count are masked,
+#: tiles with more entries get multiple rows accumulated on device.  The
+#: per-tile pad-to-W waste feeds straight into the kernel contraction, so a
+#: narrower row wastes less; 64 won a sweep over 32/64/128 on the depth-6
+#: workload on the previous accelerator and awaits a re-sweep on this one
 _ROW_W = 64
 #: lax.map chunk: bounds the [chunk, Vt, W] kernel live set (~8 MiB f32)
 _CHUNK = 32
@@ -135,9 +135,8 @@ def _lv_rows_step(A, Bv, touched, eff,
 
     A/Bv/touched/eff: flat [capacity·V] pool views (eff read-only) in
     TILE-MAJOR voxel order — flat address (slot·tpb + pos)·Vt + vt — so each
-    tile's update is one contiguous 512-element run (the raster layout's
-    8-element fragments ran the pool scatters at 1.7 GiB/s, 40% of LV
-    device time in the r5 profile).  vox_base_t [tpb, Vt, 3]: per tile
+    tile's update is one contiguous 512-element run (the raster layout
+    scatters 8-element fragments).  vox_base_t [tpb, Vt, 3]: per tile
     position, its voxels' block-local centers.  entries [E,6] degenerate-hit
     + free-ray segments across all scans of the batch, labels [E] (1 hit /
     0 ray); ids_flat [F] tile-major merged entry ids.  row_* [Rw]: each row
@@ -159,8 +158,7 @@ def _lv_rows_step(A, Bv, touched, eff,
     rpos = tile_pos[row_tile]                                       # [Rw]
     rctr = tile_ctr[row_tile]                                       # [Rw,3]
     # ONE bulk entry/label gather up front: per-chunk gathers inside the
-    # lax.map ran at ~1.8 M ids/s from step overhead (~25% of LV device
-    # time, r5 profile); a single [Rw·W] gather streams at full rate
+    # lax.map pay per-step overhead; a single [Rw·W] gather streams
     ent_rows = entries[ids.reshape(-1)].reshape(Rw, W, 6)
     lab_rows = labels[ids.reshape(-1)].reshape(Rw, W)
 
@@ -171,7 +169,8 @@ def _lv_rows_step(A, Bv, touched, eff,
         d = km.point_to_segment_dist(vox, ent)
         K = jnp.where(member, km.sparse_kernel_lv(d / jnp.float32(ell), sf2), 0.0)
         rhs = jnp.stack([lab, jnp.ones_like(lab)], axis=1)          # [W,2]
-        out = jnp.dot(K, rhs, preferred_element_type=jnp.float32)   # [Vt,2]
+        out = jnp.dot(K, rhs, precision=jax.lax.Precision.HIGHEST,
+                      preferred_element_type=jnp.float32)           # [Vt,2]
         return out[:, 0], out[:, 1]
 
     nchunk = Rw // chunk
@@ -190,9 +189,7 @@ def _lv_rows_step(A, Bv, touched, eff,
 
     # ROW-granular pool update: the tile-major layout makes each tile one
     # contiguous [Vt] slice, so the pool reshapes to [capacity·tpb, Vt] and
-    # the scatter carries Tp row indices instead of Tp·Vt scalar ones (the
-    # per-voxel form serialized 2.4 M index ops per dispatch at ~1.7 GiB/s
-    # — 40% of LV device time in the r5 profile)
+    # the scatter carries Tp row indices instead of Tp·Vt scalar ones
     tpb = V // Vt
     nrow = A.shape[0] // Vt
     tile_row = tile_slot * jnp.int32(tpb) + tile_pos                # pad ⇒ ≥ nrow

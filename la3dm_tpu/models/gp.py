@@ -8,7 +8,7 @@ information-filter update ``ivar += 1/σ² − sf2; m_ivar += μ/σ²`` includin
 the order-dependent persistent ivar chop (gpoctree_node.cpp:36-49).
 Free-space label is −1 (gpoctomap.cpp:399); there is no k̄ gate.
 
-TPU design — the same **two-pass sequence engine** as the BGK family
+Device design — the same **two-pass sequence engine** as the BGK family
 (models/bgk.py): the HEAVY pass trains every scan's models with a batched
 Cholesky (chunked ``lax.scan`` bounding the [chunk, S, S] factor live set)
 and predicts each model's G neighbor test blocks at ALL octree-level node
@@ -250,7 +250,7 @@ class GPOctoMap(ingest.DeviceIngestMixin, base.OccupancyMapBase):
                            free_resolution=None, max_range=None) -> None:
         """Integrate a scan sequence, ≤ _SCAN_BATCH scans per dispatch pair
         (one heavy dispatch per size tier — usually one — plus one light).
-        On TPU the preprocessing pipeline runs on-device; on the host path
+        On an accelerator the preprocessing pipeline runs on-device; on the host path
         chunks are streamed so preprocessing overlaps device compute
         (see bgk.py::insert_pointclouds)."""
         if self._insert_device(clouds, origins, ds_resolution,

@@ -1,14 +1,15 @@
 """Multi-host initialization for block-sharded mapping.
 
 The reference has no distributed backend (single ROS process + OpenMP).
-Here, long-horizon mapping shards the block pool over all devices of a
-multi-host TPU slice: call :func:`initialize` once per host process, then
-build a ``ShardedBGKOctoMap`` on :func:`global_mesh`.
+Here, long-horizon mapping shards the block pool over all devices of one or
+more hosts: call :func:`initialize` once per host process, then build a
+``ShardedBGKOctoMap`` on :func:`global_mesh`.
 
 Host-side scan ingestion is replicated (every host parses the scan and
 builds the same bucket tables — deterministic), so no host-to-host data
 exchange is needed beyond XLA's own collectives: the batch→owner-slot
-scatter rides ICI within a host's devices and DCN across hosts.
+scatter runs as NCCL collectives, over NVLink between the GPUs of one host
+and over the network between hosts.
 """
 
 from __future__ import annotations

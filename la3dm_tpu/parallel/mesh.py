@@ -1,7 +1,7 @@
 """Device-mesh utilities: block-sharded map state.
 
 The reference's parallelism is one OpenMP ``parallel for`` over blocks per
-phase (bgkoctomap.cpp:250-283) in shared memory.  The TPU-native analog
+phase (bgkoctomap.cpp:250-283) in shared memory.  The device analog
 shards the *block axis* of every pool array over a 1-D ``Mesh`` — each
 device owns a contiguous slab of block slots — and runs the per-scan fused
 update under ``jit`` with GSPMD shardings, so the kernel evaluation is

@@ -11,8 +11,8 @@ blocks; SURVEY.md §7 hard parts).
 Cross-block coupling (ExtendedBlock training-point reads within kernel
 support ℓ) is resolved at bucketing time — each test-block row already
 carries its 7-neighborhood's points — so the only cross-device traffic is
-the batch-row → owner-slot scatter, which XLA lowers to an all-to-all over
-ICI.
+the batch-row → owner-slot scatter, which XLA lowers to an all-to-all
+between the mesh's devices.
 
 The pool capacity is fixed at construction (growth would re-layout every
 shard); pick capacity ≥ expected block count.
@@ -225,7 +225,7 @@ class ShardedBGKLOctoMap(_ShardedMixin, BGKLOctoMap):
 
 class ShardedGPOctoMap(_ShardedMixin, GPOctoMap):
     """GP map: batched Cholesky tiers parallelize over the model-batch axis;
-    the BCM scatter addresses the sharded pool (all-to-all over ICI)."""
+    the BCM scatter addresses the sharded pool (all-to-all between devices)."""
 
 
 class ShardedBGKLVOctoMap(_ShardedMixin, BGKLVOctoMap):

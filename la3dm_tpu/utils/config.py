@@ -10,9 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
-
-import yaml
+import re
 
 _CONFIG_ROOT = os.path.join(os.path.dirname(os.path.dirname(__file__)), "configs")
 
@@ -51,9 +49,11 @@ class MapConfig:
     # 27-neighbor extended blocks (reference -DPREDICT, CMakeLists.txt:19)
     predict: bool = False
     # Scan ingestion placement (geometry/device_ingest.py): "auto" runs the
-    # whole preprocessing pipeline on-device when the backend is a TPU and
-    # the config is statically boundable (max_range > 0), falling back to
-    # the bit-exact host path otherwise; "on"/"off" force it.
+    # whole preprocessing pipeline on-device when the backend is an
+    # accelerator (not the CPU), the family measured faster there
+    # (``AUTO_DEVICE_INGEST``: BGK and GP, not BGK-L) and the config is
+    # statically boundable (max_range > 0), falling back to the bit-exact
+    # host path otherwise; "on"/"off" force it.
     device_ingest: str = "auto"
 
     @property
@@ -86,9 +86,47 @@ class DatasetConfig:
     predict: bool = False
 
 
+_INT = re.compile(r"[-+]?[0-9]+")
+_FLOAT = re.compile(r"[-+]?(?:[0-9]+\.[0-9]*|\.[0-9]+)(?:[eE][-+]?[0-9]+)?")
+_BOOL = {v: b for b in (True, False)
+         for v in (str(b).lower(), str(b), str(b).upper())}
+
+
+def _scalar(text: str):
+    """One YAML scalar as PyYAML's ``safe_load`` reads the forms used in
+    ``configs/``: ints, floats with a decimal point, true/false, null/~,
+    quoted or plain strings."""
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "'\"":
+        return text[1:-1]
+    if text in ("", "~", "null", "Null", "NULL"):
+        return None
+    if text in _BOOL:
+        return _BOOL[text]
+    if _INT.fullmatch(text):
+        return int(text)
+    if _FLOAT.fullmatch(text):
+        return float(text)
+    return text
+
+
+_LINE = re.compile(r"""([^\s:#][^:]*?):(?:\s+('[^']*'|"[^"]*"|[^'"].*?)?)?"""
+                   r"""\s*(?:\s#.*)?""")
+
+
 def _load_yaml(path: str) -> dict:
+    """Read a flat ``key: value`` YAML file (the format of ``configs/``)."""
+    out = {}
     with open(path) as f:
-        return yaml.safe_load(f) or {}
+        for n, line in enumerate(f, start=1):
+            line = line.rstrip("\n")
+            if not line.strip() or line.lstrip().startswith("#"):
+                continue
+            m = _LINE.fullmatch(line)
+            if m is None:
+                raise ValueError(f"{path}:{n}: expected 'key: value', "
+                                 f"got {line!r}")
+            out[m.group(1)] = _scalar(m.group(2) or "")
+    return out
 
 
 def _filter_fields(cls, raw: dict) -> dict:

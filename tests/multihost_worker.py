@@ -15,6 +15,7 @@ Usage: python multihost_worker.py <coordinator> <num_procs> <proc_id> <out_dir>
 import os
 import sys
 
+# each worker owns 2 virtual CPU devices, whatever the environment selects
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                            + " --xla_force_host_platform_device_count=2").strip()

@@ -4,7 +4,7 @@ This module mirrors the C++ reference *semantics-for-semantics* — per-block
 octrees, extended-block neighbor models, per-model update gates, sequential
 BCM chops, bottom-up pruning — using brute-force box queries in place of the
 R-tree.  It is deliberately slow and scalar-ish; it exists only as ground
-truth for golden tests of the TPU fast path.
+truth for golden tests of the fast path.
 
 Citations are to the reference sources under /root/reference (structure
 documented in SURVEY.md §2-3).

@@ -30,7 +30,7 @@ def compare_maps(fast, oracle_map, atol=2e-3, rtol=0.0, check_state=True,
     ``touched_mass_tol``: touched-flag parity is only asserted when the added
     posterior mass exceeds this — update gates sit on float boundaries (the
     sparse kernel clamp for BGK/BGKL; cube-membership of beam samples for LV,
-    where the TPU path evaluates the sample grid in closed form and can
+    where the device path evaluates the sample grid in closed form and can
     differ by 1 ulp from the reference's accumulated sample positions).
     """
     ours_n = fast.n

@@ -1,5 +1,5 @@
 """Two-process jax.distributed equivalence (SURVEY §4(c): multi-host on a
-CPU mesh, no TPU hardware required).
+CPU mesh, no accelerator required).
 
 Spawns 2 worker processes (2 virtual CPU devices each → a 4-device global
 mesh), runs the production scan path on sharded maps of ALL FOUR families
@@ -52,7 +52,7 @@ def test_two_process_sharded_matches_single(tmp_path):
     assert any("SAVED" in out for out, _ in outs)
 
     # single-process references on the identical stream, same tiny pads
-    import multihost_worker as w
+    from tests import multihost_worker as w
     from la3dm_tpu.models.bgk import BGKOctoMap
     from la3dm_tpu.models.bgkl import BGKLOctoMap
     from la3dm_tpu.models.bgklv import BGKLVOctoMap
